@@ -1,11 +1,11 @@
-"""breakmer_tpu — a TPU-native structural-variant caller.
+"""breakmer_tpu — a JAX structural-variant caller for NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``ccgd-profile/BreaKmer`` (Abo et al., NAR 2015): per target region it
 extracts SV-informative reads, subtracts reference k-mers from sample
 k-mers, assembles sample-only k-mers into contigs, realigns contigs with a
-batched seed-and-extend aligner (anti-diagonal wavefront Smith-Waterman
-Pallas kernel), and classifies breakpoints into indel / deletion /
+batched seed-and-extend aligner (a Smith-Waterman CUDA kernel on the
+GPU, an XLA wavefront scan elsewhere), and classifies breakpoints into indel / deletion /
 tandem-duplication / inversion / translocation calls.
 
 Layer map (mirrors SURVEY.md §7):

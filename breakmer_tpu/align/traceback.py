@@ -1,7 +1,7 @@
 """Host-side affine-gap local alignment with full traceback.
 
-Division of labor (SURVEY.md §7 hard part 4): the device wavefront kernel
-(ops/sw.py, ops/sw_pallas.py) scores thousands of (contig, window) pairs
+Division of labor (SURVEY.md §7 hard part 4): the device SW
+(ops/sw_cuda.py on the GPU, ops/sw.py elsewhere) scores thousands of (contig, window) pairs
 and picks winners; only the few winning pairs per contig come here for the
 full DP with traceback that the breakpoint classifier needs (block/gap
 structure — the PSL-equivalent; reference: sv_caller.py class blat_res).

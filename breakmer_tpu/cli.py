@@ -23,7 +23,7 @@ from breakmer_tpu.runner import Runner
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="breakmer_tpu",
-        description="TPU-native structural-variant caller (BreaKmer-class)",
+        description="JAX structural-variant caller (BreaKmer-class)",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -73,8 +73,8 @@ def load_config(args: argparse.Namespace) -> Config:
 def run_check() -> int:
     """Startup self-checks. The reference probes its external binaries
     (utils.py test_jellyfish/test_cutadapt, SURVEY.md §2 #20); here the
-    dependencies are the JAX backend, the Pallas lowering path, and the
-    optional native IO library."""
+    dependencies are the JAX backend, the SW implementation the dispatcher
+    picks for it, and the native IO library."""
     import jax
 
     from breakmer_tpu import native
@@ -99,12 +99,10 @@ def run_check() -> int:
     try:
         import numpy as np
 
-        from breakmer_tpu.ops.sw import sw_score_batch
+        from breakmer_tpu.ops.sw import sw_impl, sw_score_batch
 
-        s, _, _ = sw_score_batch(
-            np.zeros((8, 128), np.int8), np.zeros((8, 128), np.int8)
-        )
-        print(f"SW engine ({'pallas' if platform == 'tpu' else 'xla'}): OK")
+        sw_score_batch(np.zeros((8, 128), np.int8), np.zeros((8, 128), np.int8))
+        print(f"SW engine ({sw_impl(platform)}): OK")
     except Exception as exc:
         failures += 1
         print(f"SW engine: FAIL ({exc})")

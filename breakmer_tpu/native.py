@@ -1,7 +1,8 @@
 """ctypes bindings for the native IO runtime (native/breakmer_native.cc).
 
-Auto-builds via ``make`` on first import if the shared library is missing
-and a toolchain exists; every entry point degrades to None when the
+The shared library is compiled from the committed source with the host's
+C++ compiler at first use, into native/build/ (gitignored), and rebuilt
+when the source is newer. Every entry point degrades to None when the
 library is unavailable so all callers keep a pure-Python fallback
 (io/bam.py, io/fastq.py). pybind11 is not in the image; the ABI is plain
 C consumed with ctypes (SURVEY.md §7 environment notes).
@@ -10,7 +11,9 @@ C consumed with ctypes (SURVEY.md §7 environment notes).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
+import os
 import subprocess
 from pathlib import Path
 from typing import Dict, Optional
@@ -18,10 +21,43 @@ from typing import Dict, Optional
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-_SO = _NATIVE_DIR / "libbreakmer_native.so"
+_CC = _NATIVE_DIR / "breakmer_native.cc"
+_SO = _NATIVE_DIR / "build" / "libbreakmer_native.so"
 
 _lib: Optional[ctypes.CDLL] = None
 _load_attempted = False
+
+
+def build_shared_lib(src: Path, lib: Path, cmd_for) -> Path:
+    """Compile ``src`` into ``lib`` unless an up-to-date ``lib`` exists.
+    ``cmd_for(out)`` gives the compiler command writing ``out``.
+    Concurrent processes serialise on a lock file; the library is
+    written under a temporary name and renamed into place. Raises
+    RuntimeError when the compiler fails."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.parent / f".{lib.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+            return lib
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = cmd_for(tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"building {src.name} failed ({' '.join(cmd)}):\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+    return lib
+
+
+def build() -> Path:
+    """The native IO library, compiled with the host's C++ compiler."""
+    return build_shared_lib(_CC, _SO, lambda out: [
+        os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17", "-Wall",
+        "-pthread", "-shared", str(_CC), "-o", str(out), "-lz",
+    ])
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -29,23 +65,13 @@ def _load() -> Optional[ctypes.CDLL]:
     if _load_attempted:
         return _lib
     _load_attempted = True
-    _cc = _NATIVE_DIR / "breakmer_native.cc"
-    stale = (
-        not _SO.exists()
-        or (_cc.exists() and _SO.stat().st_mtime < _cc.stat().st_mtime)
-    )
-    if stale:
-        try:
-            subprocess.run(
-                ["make", "-C", str(_NATIVE_DIR)],
-                capture_output=True, timeout=120, check=True,
-            )
-        except Exception:
-            if not _SO.exists():
-                return None
     try:
-        lib = ctypes.CDLL(str(_SO))
-    except OSError:
+        lib = ctypes.CDLL(str(build()))
+    except (OSError, RuntimeError) as exc:
+        logging.getLogger("breakmer").warning(
+            "native IO library unavailable (%s); pure-Python fallbacks active",
+            exc,
+        )
         return None
     u64 = ctypes.c_uint64
     u64p = ctypes.POINTER(u64)
@@ -83,15 +109,11 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.nat_sw_traceback.argtypes = [
         vp, i64, vp, i64, i32, i32, i32, i32, vp, vp,
     ]
-    try:
-        lib.nat_assemble.restype = ctypes.c_int
-        lib.nat_assemble.argtypes = [
-            vp, i64, i64, vp, vp, i64, i32, i32, i32, ctypes.c_double,
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), u64p,
-        ]
-    except AttributeError:
-        # stale shared library predating nat_assemble; callers fall back
-        pass
+    lib.nat_assemble.restype = ctypes.c_int
+    lib.nat_assemble.argtypes = [
+        vp, i64, i64, vp, vp, i64, i32, i32, i32, ctypes.c_double,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), u64p,
+    ]
     _lib = lib
     return lib
 
@@ -322,7 +344,7 @@ def assemble_greedy(
     fall back to the oracle.
     """
     lib = _load()
-    if lib is None or not hasattr(lib, "nat_assemble"):
+    if lib is None:
         return None
     codes = np.ascontiguousarray(codes, dtype=np.int8)
     lengths = np.ascontiguousarray(lengths, dtype=np.int32)

@@ -1,4 +1,4 @@
-"""Multi-chip parallelism: mesh setup, region batching, sharded device step.
+"""Multi-card parallelism: mesh setup, region batching, sharded device step.
 
 The reference's only parallelism is a host multiprocessing pool over
 target regions (SURVEY.md §2b — reference: runner.run + Pool(nprocs)).
@@ -13,8 +13,9 @@ Here the equivalent is data parallelism over regions expressed with
   merge:          per-region partials all-gathered into one call set
                   (replaces the serial runner aggregation loop)
 
-Collectives ride ICI within a slice / DCN across slices — XLA inserts
-them from the shardings; there is no NCCL/MPI anywhere (SURVEY.md §2c).
+XLA inserts the collectives from the shardings and runs them over NVLink
+between the cards of one machine (NCCL underneath); the program itself
+calls no MPI or NCCL (SURVEY.md §2c).
 """
 
 from breakmer_tpu.parallel.mesh import make_mesh_2d, mesh_axes

@@ -1,7 +1,7 @@
 """Multi-host orchestration (BASELINE.json config #5).
 
 The reference is strictly single-host (SURVEY.md §2c). Here a panel run
-scales across a pod slice as: one process per host
+scales across machines as: one process per machine
 (``jax.distributed.initialize``), target regions partitioned
 round-robin across processes (each with its own ledger shard for
 region-granular resume), device-level work inside each process using the
@@ -9,10 +9,11 @@ local mesh, and the call set merged by process 0 from the ledger shards
 on the shared filesystem (the host-side twin of the device all-gather
 merge in parallel/step.py).
 
-Only one real chip exists in this environment (SURVEY.md §7 hard part 6):
-the partition/merge logic is exercised by unit tests with simulated
-process counts and by the degenerate 1-process path; real DCN scaling
-numbers are deferred to hardware with >1 host.
+Run ONE process per machine: each process opens every local card (its
+batched k-mer launches shard over all of them), and a JAX process
+reserves most of each card's memory when it starts, so a second process
+on the same machine fails for want of memory. The partition/merge logic
+is exercised by tests with several CPU processes on one host.
 """
 
 from __future__ import annotations

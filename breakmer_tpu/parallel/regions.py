@@ -1,8 +1,8 @@
 """Region scheduler: bucketing regions/reads into fixed-shape batches.
 
 Reference: the region scheduler is runner.run's loop feeding a process
-pool one region at a time (SURVEY.md §2 #3, #19). On TPU the unit of
-work must be a STATIC-shape tensor, so regions are packed into
+pool one region at a time (SURVEY.md §2 #3, #19). On the device the unit
+of work must be a STATIC-shape tensor, so regions are packed into
 [G, R_max, L_max] batches: G regions per device step, each padded to the
 batch's read-count and read-length tiers (SURVEY.md §7 hard part 3 —
 pad tiers bound recompiles).

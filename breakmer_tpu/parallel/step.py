@@ -12,9 +12,9 @@ that sits between them:
        over "regions" — the call-set merge collective), and SW scores
        (all-gather over "pairs" then "regions")
 
-XLA inserts the collectives from the shard_map specs; they ride ICI
-within a slice. The same function jits unsharded for single-chip use
-(``make_region_step(mesh=None)``).
+XLA inserts the collectives from the shard_map specs; between the cards
+of one machine they run over NVLink, all to all. The same function jits
+unsharded for single-card use (``make_region_step(mesh=None)``).
 """
 
 from __future__ import annotations

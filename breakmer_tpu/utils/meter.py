@@ -4,8 +4,8 @@ The reference's only observability is elapsed-time log prose
 (``sv_processor.py runner.run`` ``time.time()`` deltas, reconstructed —
 SURVEY.md §5). Here a process-global meter accumulates per-stage wall
 seconds and Smith-Waterman cell-updates across a run; the runner writes
-the snapshot — including run-level wall-clock GCUPS, the required metric
-from BASELINE.json ("SW GCUPS/chip") — into ``<analysis_dir>/metrics.json``.
+the snapshot — including SW launches per implementation and run-level
+wall-clock GCUPS — into ``<analysis_dir>/metrics.json``.
 
 Under multihost each process meters itself; process 0's metrics.json
 reports process 0's stages (region work is host-partitioned, so every
@@ -28,6 +28,7 @@ class Meter:
         self.sw_cells = 0
         self.sw_s = 0.0
         self.sw_launches = 0
+        self.sw_launches_by_impl: dict = defaultdict(int)
 
     @contextmanager
     def stage(self, name: str):
@@ -37,10 +38,13 @@ class Meter:
         finally:
             self.stage_s[name] += time.perf_counter() - t0
 
-    def add_sw(self, cells: int, secs: float) -> None:
+    def add_sw(self, cells: int, secs: float, impl: str) -> None:
+        """One SW launch of ``cells`` cell updates, served by ``impl``
+        (ops.sw.sw_impl: "cuda" or "scan")."""
         self.sw_cells += int(cells)
         self.sw_s += secs
         self.sw_launches += 1
+        self.sw_launches_by_impl[impl] += 1
 
     def snapshot(self) -> dict:
         out = {
@@ -49,12 +53,12 @@ class Meter:
         if self.sw_launches:
             out["sw"] = {
                 "launches": self.sw_launches,
+                "launches_by_impl": dict(sorted(self.sw_launches_by_impl.items())),
                 "cells": self.sw_cells,
                 "wall_s": round(self.sw_s, 4),
-                # end-to-end GCUPS including dispatch/fetch overhead —
-                # honest pipeline number; bench.py's slope-fit kernel
-                # GCUPS excludes the relay floor by design
-                # 6 decimals: a cold-compile CPU run can be ~1e-5 GCUPS
+                # GCUPS over the host's wall time of each launch: upload,
+                # dispatch, kernel and fetch (a cold run includes compiles;
+                # 6 decimals: a cold-compile CPU run can be ~1e-5 GCUPS)
                 "gcups_wall": (
                     round(self.sw_cells / self.sw_s / 1e9, 6) if self.sw_s > 0 else 0.0
                 ),

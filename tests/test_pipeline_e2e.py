@@ -297,6 +297,8 @@ def test_e2e_stage_metrics(run_events):
         assert stage in stage_s and stage_s[stage] >= 0.0, stage
     sw = metrics["sw"]
     assert sw["launches"] >= 1
+    # every launch is attributed to the implementation that served it
+    assert sw["launches_by_impl"] == {"scan": sw["launches"]}
     assert sw["cells"] > 0
     assert sw["gcups_wall"] > 0
 

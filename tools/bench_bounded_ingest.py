@@ -27,7 +27,8 @@ from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
 
 READ_LEN = 250
 CHROM_LEN = 2_000_000
@@ -94,7 +95,7 @@ def _build_fixture(work: Path, target_gb: float) -> dict:
     from breakmer_tpu.io.fasta import write_fasta
     from breakmer_tpu.io.sam import SamRecord, parse_sam_line
 
-    sys.path.insert(0, "/root/repo/tests")
+    sys.path.insert(0, str(REPO / "tests"))
     from fixtures import (
         ErrorModel, Haplotype, NovelBlock, RefBlock, SamBuilder, rand_seq,
     )

@@ -31,7 +31,8 @@ from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
 
 import jax  # noqa: E402
 
@@ -41,7 +42,7 @@ from breakmer_tpu.align.index import GenomeIndex  # noqa: E402
 from breakmer_tpu.config import Config  # noqa: E402
 from breakmer_tpu.runner import Runner  # noqa: E402
 
-sys.path.insert(0, "/root/repo/tests")
+sys.path.insert(0, str(REPO / "tests"))
 from fixtures import Haplotype, NovelBlock, RefBlock, SamBuilder  # noqa: E402
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)

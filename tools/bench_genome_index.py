@@ -17,10 +17,12 @@ the reference's gfServer process was).
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
 
 from breakmer_tpu.align.index import GenomeIndex  # noqa: E402
 
